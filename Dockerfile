@@ -1,6 +1,6 @@
 # Packaging parity with the reference's 2-stage Dockerfile: the framework
-# plus the native host kernels in a slim Python image. TPU wheels are
-# injected by the deployment environment (libtpu is host-managed).
+# plus the native host kernels in a slim Python image (CPU JAX; a GPU
+# deployment installs JAX's CUDA plugin instead).
 FROM python:3.12-slim AS build
 RUN apt-get update && apt-get install -y --no-install-recommends g++ make \
     && rm -rf /var/lib/apt/lists/*
@@ -21,7 +21,7 @@ RUN make -C csrc plugin && \
     go build -o /opt/lattisense-tpu/bin/runtask ./cmd/runtask
 
 FROM python:3.12-slim
-RUN pip install --no-cache-dir "jax[cpu]" numpy sympy pytest
+RUN pip install --no-cache-dir "jax[cpu]" numpy pytest
 WORKDIR /opt/lattisense-tpu
 COPY lattisense_tpu/ lattisense_tpu/
 COPY examples/ examples/

@@ -1,14 +1,13 @@
 """Collective-traffic audit: measured bytes over each XLA collective in
-the sharded kernels vs the doc/sharding_guide.md cost model (VERDICT r4
-item 8) — exact, hardware-free (compiled-HLO inspection on the virtual
-mesh), converting the sharding guide's formulas from prose to evidence.
+the sharded kernels vs the doc/sharding_guide.md cost model — exact,
+hardware-free (compiled-HLO inspection on the virtual mesh), converting the sharding guide's formulas from prose to evidence.
 
 Model predictions audited (per device, words of the data dtype):
 - DistNtt forward/inverse: 2 all_to_alls x L*n/D words per transform
-  (sharding_guide.md "ICI traffic: two all_to_alls of n/D words per
+  (sharding_guide.md "collective traffic: two all_to_alls of n/D words per
   device per transform", per limb-row, L rows).
 - Limb-axis hybrid key switch: psum_scatter 2*T*n/D + psum alpha*n
-  ("ICI traffic: 2*T*n/D + alpha*n words per switch").
+  ("collective traffic: 2*T*n/D + alpha*n words per switch").
 - Coeff-axis hybrid key switch: 4 all_to_alls per switch (2 per NTT
   direction in decompose-modup + switch epilogue).
 - Coeff-axis Galois: one all_gather (n words landed per device).
@@ -39,6 +38,8 @@ import numpy as np
 import jax
 
 jax.config.update('jax_platforms', 'cpu')
+from lattisense_tpu.utils import compile_cache  # noqa: E402
+compile_cache.configure()
 
 _DT_BYTES = {'u64': 8, 's64': 8, 'f64': 8, 'u32': 4, 's32': 4, 'f32': 4,
              'u16': 2, 's16': 2, 'u8': 1, 's8': 1, 'pred': 1}
@@ -181,7 +182,10 @@ def main():
 
     out_path = os.environ.get(
         'LATTISENSE_CB_OUT',
-        f'/root/repo/artifacts/collective_bytes_{time.strftime("%Y-%m-%d")}.json')
+        os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                     'artifacts',
+                     f'collective_bytes_{time.strftime("%Y-%m-%d")}.json'))
+    os.makedirs(os.path.dirname(out_path), exist_ok=True)
     report['date'] = time.strftime('%Y-%m-%d %H:%M UTC', time.gmtime())
     with open(out_path, 'w') as f:
         json.dump(report, f, indent=1)

@@ -1,20 +1,20 @@
 """Full n=2^16 profile: measured sharded key working set vs the HBM wall.
 
-The single-chip full bootstrap dies RESOURCE_EXHAUSTED (BASELINE.md:
-~6-12 GB of Galois keys alone vs one v5e's HBM). This measures the
+The full bootstrap's key set was too large for a 16 GB device
+(~6-12 GB of Galois keys alone). This measures the
 actual numbers at full size on the virtual 8-device mesh: total key
 bytes, per-device addressable-shard bytes under coeff sharding, and the
-exact 1/D split — the quantitative half of VERDICT r4 item 1a that
-needs no host walk. Reference profile anchor:
-/root/reference/fhe_ops_lib/fhe_lib_v2.h:294-308 (N16QP1546H192H32).
+exact 1/D split, with no host walk. Reference profile anchor:
+fhe_ops_lib/fhe_lib_v2.h:294-308 (N16QP1546H192H32).
 """
 import json
 import os
 import sys
 import time
 
-sys.path.insert(0, '/root/repo')
-sys.path.insert(0, '/root/repo/benchmarks')
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, 'benchmarks'))
 os.environ['JAX_PLATFORMS'] = 'cpu'
 flags = os.environ.get('XLA_FLAGS', '')
 if '--xla_force_host_platform_device_count' not in flags:
@@ -24,6 +24,8 @@ if '--xla_force_host_platform_device_count' not in flags:
 import numpy as np
 import jax
 jax.config.update('jax_platforms', 'cpu')
+from lattisense_tpu.utils import compile_cache  # noqa: E402
+compile_cache.configure()
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
@@ -63,14 +65,12 @@ out = {
     'keygen_s': round(t_keygen, 1),
     'note': ('coeff-axis sharding of every key leaf on the virtual '
              'D-device mesh; per-device bytes are addressable-shard '
-             'measurements, not arithmetic. One v5e-class chip (16 GB '
-             'HBM) cannot hold keys_total alongside DFT diagonals and '
-             'segment programs (measured RESOURCE_EXHAUSTED, '
-             'BASELINE.md); keys_per_device at D=8 fits with room for '
-             'the sharded activations.'),
+             'measurements, not arithmetic.'),
     'date': time.strftime('%Y-%m-%d %H:%M UTC', time.gmtime()),
 }
-path = f'/root/repo/artifacts/fullsize_keyset_D{D}_{time.strftime("%Y-%m-%d")}.json'
+path = os.path.join(ROOT, 'artifacts',
+                    f'fullsize_keyset_D{D}_{time.strftime("%Y-%m-%d")}.json')
+os.makedirs(os.path.dirname(path), exist_ok=True)
 with open(path, 'w') as f:
     json.dump(out, f, indent=1)
 print(json.dumps(out, indent=1), flush=True)

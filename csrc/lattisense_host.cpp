@@ -1,7 +1,7 @@
 // Host-side native crypto kernels (SDK band).
 //
 // The reference delegates all host crypto to Lattigo's Go kernels via cgo
-// (SURVEY.md §2.5); here the TPU runs the compiled evaluation path and this
+// (SURVEY.md §2.5); here the device runs the compiled evaluation path and this
 // library accelerates the *host* paths that stay on CPU: key generation,
 // encode/encrypt/decrypt inside the SDK, and the NumPy golden model the
 // conformance suite compares against. Exact u64 modular arithmetic via

@@ -24,6 +24,8 @@ def example_args(description: str):
     if args.cpu:
         import jax
         jax.config.update('jax_platforms', 'cpu')
+    from lattisense_tpu.utils import compile_cache
+    compile_cache.configure()
     return args
 
 

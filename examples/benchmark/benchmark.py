@@ -3,7 +3,7 @@ examples/benchmark_cpu/benchmark_cpu.cpp: BFV mult_relin, CKKS mult_relin,
 BFV rotate — N_OP independent ops, ops/s from wall-clock).
 
 Where the reference extracts parallelism from a 32-thread pool over 1024
-graph nodes, the TPU build batches the independent ops on the device
+graph nodes, this framework batches the independent ops on the device
 (parallel/batch.py) — same measurement, hardware-appropriate execution.
 Timing uses chained dependencies + an output fetch and reports the
 marginal per-call slope (fixed dispatch/fetch overheads stripped).

@@ -22,7 +22,7 @@ def main():
     if w32:
         _sys.argv.remove('--w32')
     example_args('CKKS bootstrapping (toy chain); --w32 runs the '
-                 'TPU-native 32-bit-word composite-scaling variant')
+                 '32-bit-word composite-scaling variant')
     from lattisense_tpu.core.modring import gen_ntt_primes
     from lattisense_tpu.params import CkksParams
     from lattisense_tpu.runtime import CkksBtpContext
@@ -30,7 +30,7 @@ def main():
 
     N = 256
     if w32:
-        # TPU-native: uniform 31-bit chain; the working scale spans prime
+        # 32-bit word: uniform 31-bit chain; the working scale spans prime
         # PAIRS (composite scaling, limbs_per_level auto-2), so the
         # exhausted input sits at level 1 (the composite base q0·q1)
         qs = gen_ntt_primes(N, 31, 46)

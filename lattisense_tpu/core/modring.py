@@ -55,22 +55,53 @@ def is_ntt_friendly(q: int, n: int) -> bool:
     return (q - 1) % (2 * n) == 0
 
 
+# Miller–Rabin with the first thirteen prime bases (2…41) is exact for
+# every n < 3.3·10^24 (Sorenson & Webster 2015; bases 2…37 alone stop at
+# 3.2·10^23), far above any word-size prime.
+_MR_BASES = (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37, 41)
+_MR_LIMIT = 3317044064679887385961981
+
+
+def is_prime(n: int) -> bool:
+    """Deterministic primality test for n < 3.3·10^24."""
+    if n < 2:
+        return False
+    for p in _MR_BASES:
+        if n % p == 0:
+            return n == p
+    if n >= _MR_LIMIT:
+        raise ValueError(f'{n} is beyond the deterministic Miller–Rabin range')
+    d, s = n - 1, 0
+    while d % 2 == 0:
+        d //= 2
+        s += 1
+    for a in _MR_BASES:
+        x = pow(a, d, n)
+        if x in (1, n - 1):
+            continue
+        for _ in range(s - 1):
+            x = x * x % n
+            if x == n - 1:
+                break
+        else:
+            return False
+    return True
+
+
 def gen_ntt_primes(n: int, bit_size: int, count: int, exclude=()) -> list[int]:
     """Generate ``count`` primes ≡ 1 mod 2n just below 2^bit_size.
 
-    Used for the BFV multiplication auxiliary basis (BEHZ) and for
-    TPU-pinned parameter profiles (the reference pins FPGA primes the same
+    Used for the BFV multiplication auxiliary basis (BEHZ) and for the
+    31-bit parameter profiles (the reference pins FPGA primes the same
     way, frontend/custom_task.py:215).
     """
-    import sympy
-
     step = 2 * n
     candidate = (1 << bit_size) - 1
     candidate -= (candidate - 1) % step  # candidate ≡ 1 mod 2n
     found: list[int] = []
     excl = set(exclude)
     while len(found) < count and candidate > (1 << (bit_size - 1)):
-        if candidate not in excl and sympy.isprime(candidate):
+        if candidate not in excl and is_prime(candidate):
             found.append(candidate)
         candidate -= step
     if len(found) < count:
@@ -82,7 +113,7 @@ class PrimeRing:
     """Constants and tables for Z_q[x]/(x^n+1) with one prime q.
 
     ``word_bits`` selects the machine word (R = 2^word): 64 (default) or 32
-    for prime chains < 2^31 — the TPU-native word size (core/u64.py).
+    for prime chains < 2^31 (core/u64.py).
     """
 
     def __init__(self, q: int, n: int, word_bits: int = 64):

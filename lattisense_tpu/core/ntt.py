@@ -3,14 +3,15 @@
 Iterative Cooley–Tukey (forward, natural → bit-reversed) and
 Gentleman–Sande (inverse, bit-reversed → natural) with merged ψ twiddles,
 expressed entirely as reshapes + broadcast elementwise ops — no gathers, so
-XLA maps every butterfly stage onto the VPU and fuses the Shoup arithmetic.
-log2(n) stages are unrolled at trace time (static shapes).
+XLA fuses every butterfly stage with its Shoup arithmetic. log2(n) stages
+are unrolled at trace time (static shapes). On a GPU the jax path runs the
+row-fused kernel of ops/ntt_gpu.py instead (bit-identical).
 
 Arrays are u64 with shape (..., L, n): leading batch dims, L RNS limbs
 (one prime per limb, all limbs transformed in parallel), n coefficients.
 
 This replaces the reference's Lattigo/HEonGPU NTT kernels
-(SURVEY.md §2.5 "TPU equivalent"); the convention "NTT domain" throughout
+(SURVEY.md §2.5); the convention "NTT domain" throughout
 the framework means *bit-reversed evaluation order*, matching these kernels.
 """
 
@@ -20,24 +21,17 @@ from . import u64 as _u
 
 _USE_NATIVE = os.environ.get('LATTISENSE_NO_NATIVE', '') in ('', '0')
 
-# Fused Pallas kernels for the device path (opt-in until the real-chip
-# Mosaic build is validated end-to-end; bit-identical to the XLA path,
-# see ops/ntt_pallas.py and tests/test_ntt_pallas.py).
-_USE_PALLAS = (os.environ.get('LATTISENSE_PALLAS_NTT',
-                              os.environ.get('LATTISENSE_PALLAS', '0'))
-               not in ('', '0'))
 _USE_CONJ_INTT = (os.environ.get('LATTISENSE_CONJ_INTT', '0')
                   not in ('', '0'))
 # butterfly radix for the XLA device path: merging levels into one pass
 # cuts HBM materializations (the device is bandwidth-bound); 4 = two
 # levels per pass. LATTISENSE_NTT_RADIX=2 restores the round-1 code.
 _RADIX = int(os.environ.get('LATTISENSE_NTT_RADIX', '4'))
-# the inverse kernel is only at parity with XLA so far (NOTES.md) — it can
-# be disabled independently while the forward stays fused
-_USE_PALLAS_INTT = (os.environ.get('LATTISENSE_PALLAS_INTT',
-                                   os.environ.get('LATTISENSE_PALLAS_NTT',
-                                                  os.environ.get('LATTISENSE_PALLAS', '0')))
-                    not in ('', '0'))
+
+# Word sizes (bytes) whose device transforms run as the row-fused GPU kernel
+# (ops/ntt_gpu.py) when the program is compiled for a GPU; other words, and
+# every other platform, take the plain XLA path below.
+GPU_KERNEL_WORDS = frozenset({4, 8})
 
 
 def _native():
@@ -47,38 +41,31 @@ def _native():
     return native if native.available() else None
 
 
-def _pallas_ok(xp, n, dtype=None):
-    if dtype is not None and dtype.itemsize != 8:
-        return False  # fused kernels are u64-specific
-    return _USE_PALLAS and xp.__name__ != 'numpy' and n >= 256
-
-
-# u64 fold-idiom kernels (ops/ntt_pallas64f.py): bit-exact on chip but
-# LOSE to XLA isolated (fwd 14.8 vs 11.4 us/limb-row, B=32 L=4 n=16384,
-# 2026-08-17) — the 16-bit-digit pair emulation is ~2x the op count of
-# XLA's own u64 lowering, and the fold idiom's Mosaic rate (~1.3 Tops/s
-# here) cannot make that up. Opt-in for experimentation only.
-_USE_PALLAS64F = os.environ.get('LATTISENSE_PALLAS64F', '0') not in ('', '0')
-
-
-# 32-bit-word fused kernels (ops/ntt_pallas32.py): native u32 Shoup
-# butterflies with the 2D-FOLD stage idiom (see that module's docstring).
-# Chip-measured 2026-08-17 (B=32, L=8, n=16384): fwd 0.68 ms vs XLA 0.76,
-# inv 1.05 vs 1.16 isolated — and END-TO-END the w32 mult_relin improves
-# 1972 -> 1340 us/op (1.47x; no u32-plane split/merge, so the pallas
-# islands' fusion tax does not bite). 'auto' (default) = ON when the
-# backend is a real TPU, off elsewhere (CPU interpret mode is slow);
-# LATTISENSE_PALLAS32=0/1 forces.
-_PALLAS32_ENV = os.environ.get('LATTISENSE_PALLAS32', 'auto')
-
-
-def _pallas32_ok(xp, n, dtype):
-    if dtype.itemsize != 4 or xp.__name__ == 'numpy' or n < 256:
+def _gpu_kernel_ok(xp, x, ring):
+    """Whether the GPU kernel can run this device transform (not for host
+    arrays, ring views without moduli, other words or shapes)."""
+    if xp.__name__ == 'numpy' or getattr(ring, 'moduli', None) is None:
         return False
-    if _PALLAS32_ENV == 'auto':
-        import jax
-        return jax.default_backend() == 'tpu'
-    return _PALLAS32_ENV not in ('', '0')
+    from ..ops import ntt_gpu
+    return (x.dtype.itemsize in GPU_KERNEL_WORDS
+            and ntt_gpu.supported(x.shape[-1], x.dtype))
+
+
+def _by_platform(xp, x, ring, name, xla_fn):
+    """Kernel ``ntt_gpu.<name>`` where the program is lowered for a GPU,
+    ``xla_fn`` elsewhere.
+
+    The choice is made per lowering platform (``lax.platform_dependent``),
+    not by the process's default backend, so a program placed on CPU
+    devices in a GPU process still gets the XLA path. A kernel that fails
+    to build or lower on the GPU raises; it never falls back to XLA."""
+    if not _gpu_kernel_ok(xp, x, ring):
+        return xla_fn(x)
+    from jax import lax
+    from ..ops import ntt_gpu
+    kernel = getattr(ntt_gpu, name)
+    return lax.platform_dependent(
+        x, cuda=lambda v: kernel(v, ring), default=xla_fn)
 
 
 def ntt(xp, x, ring):
@@ -105,16 +92,10 @@ def ntt(xp, x, ring):
         from ..ops import ntt_mxu
         if ntt_mxu.enabled(xp, x.shape[-1], x.dtype):
             return ntt_mxu.ntt(xp, x, ring)
-        if _pallas32_ok(xp, x.shape[-1], x.dtype):
-            from ..ops.ntt_pallas32 import ntt_fused32
-            return ntt_fused32(x, ring)
-        if (_USE_PALLAS64F and x.dtype.itemsize == 8
-                and xp.__name__ != 'numpy' and x.shape[-1] >= 256):
-            from ..ops.ntt_pallas64f import ntt_fused64
-            return ntt_fused64(x, ring)
-    if _pallas_ok(xp, x.shape[-1], x.dtype):
-        from ..ops.ntt_pallas import ntt_fused
-        return ntt_fused(x, ring)
+    return _by_platform(xp, x, ring, 'ntt', lambda v: _ntt_xla(xp, v, ring))
+
+
+def _ntt_xla(xp, x, ring):
     n = x.shape[-1]
     L = x.shape[-2]
     batch = x.shape[:-2]
@@ -167,7 +148,7 @@ def ntt(xp, x, ring):
 
 def _brv_transpose(xp, x, n):
     """Bit-reversal of the last axis as one (2,)*logn axis-reversal
-    transpose (a tiled relayout — far cheaper than a gather on TPU)."""
+    transpose (a tiled relayout — far cheaper than a gather)."""
     logn = n.bit_length() - 1
     lead = x.shape[:-1]
     k = len(lead)
@@ -228,23 +209,14 @@ def intt(xp, x, ring):
         from ..ops import ntt_mxu
         if ntt_mxu.enabled(xp, x.shape[-1], x.dtype):
             return ntt_mxu.intt(xp, x, ring)
-        if _pallas32_ok(xp, x.shape[-1], x.dtype):
-            from ..ops.ntt_pallas32 import intt_fused32
-            return intt_fused32(x, ring)
-        if (_USE_PALLAS64F and x.dtype.itemsize == 8
-                and xp.__name__ != 'numpy' and x.shape[-1] >= 256):
-            from ..ops.ntt_pallas64f import intt_fused64
-            return intt_fused64(x, ring)
-    if _pallas_ok(xp, x.shape[-1], x.dtype) and _USE_PALLAS_INTT:
-        from ..ops.ntt_pallas import intt_fused
-        return intt_fused(x, ring)
+    return _by_platform(xp, x, ring, 'intt', lambda v: _intt_xla(xp, v, ring))
+
+
+def _intt_xla(xp, x, ring):
     if (_USE_CONJ_INTT and xp.__name__ != 'numpy' and x.shape[-1] >= 4
             and getattr(ring, 'moduli', None) is not None):
-        # 3.5x faster ISOLATED (2.0 vs 7.1 ms at B=32/L=4) but its two P
-        # transposes break XLA's cross-op fusion: the full mult_relin
-        # bench REGRESSED 359 -> 305 ops/s, so the default stays off.
-        # (The ascending formulation's stages fuse with neighboring
-        # elementwise ops; its isolated cost overstates its graph cost.)
+        # descending-distance formulation: two bit-reversal transposes
+        # instead of ascending butterfly distances (opt-in)
         return _intt_conj(xp, x, ring)
     n = x.shape[-1]
     L = x.shape[-2]

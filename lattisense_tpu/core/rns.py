@@ -9,11 +9,10 @@ CKKS rescaling.
 
 Everything is elementwise/broadcast u64 arithmetic over (..., L, n) limb
 stacks — no gathers, no data-dependent control flow — so the same code runs
-exactly on NumPy (golden) and as jitted XLA on TPU.
+exactly on NumPy (golden) and as jitted XLA on the device.
 """
 
 import math
-import os
 
 import numpy as np
 
@@ -21,12 +20,6 @@ from . import u64 as _u
 from ..params import MTILDE
 
 _U64 = np.uint64
-
-# Fused Pallas basis conversion for the device path (opt-in, bit-identical;
-# ops/bconv_pallas.py). LATTISENSE_PALLAS enables every fused kernel.
-_USE_PALLAS = (os.environ.get('LATTISENSE_PALLAS_BCONV',
-                              os.environ.get('LATTISENSE_PALLAS', '0'))
-               not in ('', '0'))
 
 
 def _col(vals, bits: int = 64):
@@ -86,12 +79,8 @@ class BasisConv:
 
         Vectorized over (T, L): one wide mont_mul on (..., T, L, n) plus a
         log-depth modular reduction tree — O(log L) traced ops instead of
-        O(L·T), and full (T·L·n)-lane VPU work per op.
+        O(L·T), and full (T·L·n)-wide elementwise work per op.
         """
-        if (_USE_PALLAS and xp.__name__ != 'numpy' and y.shape[-1] >= 256
-                and y.dtype.itemsize == 8):  # fused kernel is u64-specific
-            from ..ops.bconv_pallas import bconv_convert_fused
-            return bconv_convert_fused(y, self)
         terms = _u.mont_mul(xp, y[..., None, :, :], self.qhat_dst_mont[:, :, None],
                             self.dst_q[:, :, None], self.dst_pinv[:, :, None])
         return _u.modsum_tree(xp, terms, self.dst_q[:, :, None], axis=-2)

@@ -1,14 +1,12 @@
 """Exact unsigned word-modular arithmetic, namespace-parametric (NumPy / JAX).
 
-TPU has no native 64-bit integer datapath; XLA emulates u64 with 32-bit
-lanes. Every function below uses only operations that are *exact* under that
-emulation: wrapping u64 add/sub/mul, shifts, masks and compares. Products of
-two 32-bit values are computed exactly in u64, and wide (128-bit) products
-are assembled from four such partial products — the classic
-mulhi-via-16/32-bit-digits scheme (see SURVEY.md §7 "Hard parts").
+Every function below uses only wrapping add/sub/mul, shifts, masks and
+compares on unsigned words, so results are exact on every backend. Wide
+(double-word) products are assembled from four half-word partial products —
+the classic mulhi-via-digits scheme (see SURVEY.md §7 "Hard parts").
 
 All functions take an array namespace ``xp`` (``numpy`` or ``jax.numpy``) so
-the golden host model and the TPU device path share one implementation; the
+the golden host model and the device path share one implementation; the
 golden model's independence comes from scheme-level plain-math oracles (the
 reference's ``fhe_ops_lib/utils.h:59-80`` ``vec_mod_*`` semantics), not from
 a separate modmul.
@@ -18,12 +16,11 @@ multiplication is used where one operand is a precomputed constant (NTT
 twiddles, key polynomials) — 6 wide muls instead of ~10.
 
 Word-generic: every function dispatches on the array dtype. With u32 arrays
-(prime chains < 2^31, R = 2^32 — the TPU-native word, see
-``params.BfvParams.create_tpu_param``) the same formulas hold verbatim and
-``mulhi`` becomes four NATIVE 32-bit VPU multiplies via 16-bit digits —
-measured ~3.3x faster per limb-row than the emulated-u64 path on chip. The
-reference's FPGA backend pins 31-bit prime chains for the same
-hardware-word reason (frontend/custom_task.py:215).
+(prime chains < 2^31, R = 2^32, see ``params.BfvParams.create_tpu_param``)
+the same formulas hold verbatim, with ``mulhi`` built from four 32-bit
+multiplies of 16-bit digits. The reference's FPGA backend pins 31-bit
+prime chains for the same hardware-word reason
+(frontend/custom_task.py:215).
 """
 
 MASK32 = (1 << 32) - 1
@@ -40,8 +37,8 @@ def word_dtype(word_bits: int):
 
 def _mulhi32(xp, a, b):
     """High 32 bits of the 64-bit product a*b (u32 arrays) via 16-bit
-    digits — all partials are exact in native u32 (no carries possible:
-    each sum < 2^32, see inline bounds)."""
+    digits — all partials are exact in u32 (no carries possible: each
+    sum < 2^32, see inline bounds)."""
     u32 = a.dtype.type
     ah = a >> u32(16)
     al = a & u32(MASK16)

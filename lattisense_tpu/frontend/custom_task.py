@@ -1208,8 +1208,8 @@ def process_custom_task(input_args: list | None = None,
         raise RuntimeError('Please call set_fhe_param() before calling process_custom_task().')
     if fpga_acc:
         raise NotImplementedError(
-            'FPGA acceleration is not part of lattisense-tpu; TPU lowering '
-            'partitions the graph at runtime. Pass fpga_acc=False.')
+            'FPGA acceleration is not part of lattisense-tpu; the device '
+            'runtime partitions the graph itself. Pass fpga_acc=False.')
 
     used_ids: list = []
 

@@ -1,10 +1,12 @@
 """ctypes bindings for the native host kernel library (csrc/).
 
-Auto-builds ``liblattisense_host.so`` on first use when a toolchain is
-available; every entry point has a NumPy fallback, so the framework works
-without the native library (it is a host-side accelerator, not a
-dependency). The C++ kernels are bit-identical to core/u64.py /
-core/ntt.py by construction — asserted by tests/test_native.py.
+Builds ``liblattisense_host.so`` from the committed sources on first use
+in each process (``make -C csrc``, a no-op when the library is up to date,
+so a stale library never outlives a source change); every entry point has
+a NumPy fallback, so the framework works without the native library (it
+is a host-side accelerator, not a dependency). The C++ kernels are
+bit-identical to core/u64.py / core/ntt.py by construction — asserted by
+tests/test_native.py.
 """
 
 import ctypes
@@ -21,12 +23,11 @@ _U64P = ctypes.POINTER(ctypes.c_uint64)
 
 @functools.lru_cache(maxsize=1)
 def _lib():
-    if not os.path.exists(_SO):
-        try:
-            subprocess.run(['make', '-C', _CSRC], check=True,
-                           capture_output=True, timeout=120)
-        except Exception:
-            return None
+    try:
+        subprocess.run(['make', '-C', _CSRC], check=True,
+                       capture_output=True, timeout=300)
+    except (OSError, subprocess.SubprocessError):
+        return None
     try:
         lib = ctypes.CDLL(_SO)
     except OSError:

@@ -1,9 +1,7 @@
-"""Pallas device kernels.
+"""Device kernels beside the plain XLA path.
 
-Status: the fused NTT (ntt_pallas.ntt_fused) is bit-exact in interpret
-mode; on the real chip the Mosaic lowering of the 14-stage unrolled kernel
-currently dies in a deep abstract-eval recursion inside the remote-compile
-path (tracked for round 2: split into two 7-stage kernels or restructure
-the stage unroll). The XLA path in core/ntt.py remains the production
-device NTT.
+- ``ntt_gpu``: the row-fused negacyclic NTT/INTT for NVIDIA GPUs (Pallas,
+  Triton route), dispatched by core/ntt.py when the backend is a GPU.
+- ``ntt_mxu``: the opt-in digit-plane four-step NTT on matrix units (plain
+  XLA).
 """

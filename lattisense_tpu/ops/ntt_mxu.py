@@ -1,11 +1,9 @@
-"""Four-step negacyclic NTT/INTT on the MXU (pure XLA, no Pallas).
+"""Four-step negacyclic NTT/INTT on the matrix units (pure XLA, no kernel).
 
-Round-1 evidence (NOTES.md): VPU u32-pair butterfly kernels are
-compute-bound and lose to XLA; Pallas islands break whole-graph fusion.
 This module removes the butterflies entirely: an n-point NTT becomes TWO
 modular matrix multiplies (R×C decomposition, R = 2^ceil(logn/2), C = n/R)
-plus one pointwise twiddle — and the modular matmuls run on the MXU via
-digit-plane decomposition:
+plus one pointwise twiddle — and the modular matmuls run on the matrix
+units (tensor cores on a GPU) via digit-plane decomposition:
 
     value = Σ_d 2^(w·d) · digit_d,   digit_d ∈ [0, 2^w)   (w = 7, int8)
 
@@ -23,7 +21,12 @@ order: position i holds the evaluation at ψ^(2·brv(i)+1)); asserted
 bit-exact by tests/test_ntt_mxu.py.
 
 MAC cost: 2 · D·C · S·R · R per limb-row (D=9 planes, S=17 diagonals)
-≈ 0.6 GMAC at n=16384 — MXU work replacing ~14 VPU butterfly stages.
+≈ 0.6 GMAC at n=16384 — matrix-unit work replacing ~14 butterfly stages.
+
+Exact while every accumulator stays below 2^24 (f32 with bf16 planes) or
+2^31 (int32 with int8 planes); callers on a GPU run it under
+``jax.default_matmul_precision('highest')`` so TF32 never enters. Primes
+of 40 bits or fewer are not exact today (open: ROADMAP A3).
 """
 
 import functools
@@ -41,8 +44,8 @@ _OFF = _U64(1 << 59)
 
 # opt-in gate (validated bit-exact; default decided by end-to-end bench)
 _ENABLED = os.environ.get('LATTISENSE_MXU_NTT', '0') not in ('', '0')
-# bf16 planes + f32 MXU accumulation (measured 2.7x faster than int8 dots
-# on v5e; exact because balanced digits keep |accum| < 2^24)
+# bf16 planes + f32 accumulation (the default; exact because balanced
+# digits keep |accum| < 2^24); LATTISENSE_MXU_I8DOT=1 uses int8 planes
 _I8DOT = os.environ.get('LATTISENSE_MXU_I8DOT', '0') not in ('', '0')
 
 

@@ -1,12 +1,13 @@
 """Graph-level (batch) sharding of FHE pipelines over a device mesh.
 
 The reference extracts throughput from many independent FHE ops in flight
-on a thread pool (SURVEY.md §2.8 item 1, cpu_task_utils.h:378). The TPU
-equivalent: vmap the single-ciphertext engine pipeline over a batch axis,
+on a thread pool (SURVEY.md §2.8 item 1, cpu_task_utils.h:378). Here:
+vmap the single-ciphertext engine pipeline over a batch axis,
 shard that axis over the mesh's ``op`` dimension, and optionally shard the
 RNS limb axis over ``limb`` — XLA GSPMD partitions the program and inserts
-ICI collectives where limbs interact (base conversion, key-switch inner
-products).
+collectives where limbs interact (base conversion, key-switch inner
+products). The GPU NTT kernel partitions along batch and limb axes with
+the program (ops/ntt_gpu.py).
 """
 
 import jax
@@ -98,8 +99,7 @@ def make_limb_tp_mult_relin(engine, level: int, mesh):
     over ``op`` (GSPMD), relinearization through the explicit-collective
     limb-TP key switch (ShardedKeySwitcher.traced — digits computed per
     device, one psum_scatter, in-mesh INTT + mod-down). Bit-identical to
-    the single-device pipeline; the VERDICT-r1 "fold the epilogue /
-    integrate into the batched pipeline" item.
+    the single-device pipeline.
 
     Returns (f, prep_keys): f(a[B,2,L,n], b, kd) jitted; prep_keys(ksk)
     pads the key into the sharded digit layout.

@@ -2,7 +2,7 @@
 
 The genuine new capability vs the reference (SURVEY.md §5 "it never splits
 one ciphertext across devices"): one key switch distributed over the mesh's
-``limb`` axis with explicit ICI collectives:
+``limb`` axis with explicit collectives:
 
 - the β gadget digits are computed *independently* per device (digit axis
   sharded): each digit's FastBConv mod-up and its (T, n) NTT run locally —
@@ -18,7 +18,7 @@ one ciphertext across devices"): one key switch distributed over the mesh's
   q-limb rows — the whole key switch runs inside one shard_map program.
 
 Per-device compute drops from O(β·T·n·log n) to O((β/D)·T·n·log n +
-(T/D)·n·log n); ICI moves 2·T·n/D + |P|·n words.
+(T/D)·n·log n); the collectives move 2·T·n/D + |P|·n words.
 """
 
 import functools

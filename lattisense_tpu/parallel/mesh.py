@@ -1,18 +1,20 @@
 """Device-mesh construction for FHE sharding.
 
-Axis vocabulary (SURVEY.md §2.8 "TPU-native equivalents"):
+Axis vocabulary (SURVEY.md §2.8):
 
 - ``op``   — graph-level sharding: independent ciphertext operations of a
   batch placed on different chips. Replaces the reference's 32-thread
   priority pool (cpu_task_utils.h:378) — FHE's "data parallelism".
 - ``limb`` — kernel-level sharding: the RNS limb axis of a single
   ciphertext split across chips; base-conversion/key-switch limb products
-  reduced with psum_scatter over ICI — FHE's "tensor parallelism".
+  reduced with psum_scatter collectives — FHE's "tensor parallelism".
 - ``coeff`` — kernel-level sharding on the ring dimension: one
   polynomial's n coefficients split across chips; NTT stages exchange
-  all_to_all over ICI (parallel/coeff_sharded.py, sharded_engine.py).
+  with all_to_all collectives (parallel/coeff_sharded.py,
+  sharded_engine.py).
 
-``make_mesh(op=4, limb=2)`` builds the mesh from the available devices;
+``make_mesh(op=4, limb=2)`` builds the mesh from the available devices
+(a plain reshape: the cards of one host are joined all to all);
 pass ``coeff=`` for a third axis (e.g. ``make_mesh(op=1, limb=2,
 coeff=4)``).
 """

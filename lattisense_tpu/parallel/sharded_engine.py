@@ -2,7 +2,7 @@
 
 `parallel/coeff_sharded.py` provides the kernel-sharding primitives
 (DistNtt four-step NTT, coeff-sharded hybrid key switch); this module
-composes them into the production paths (VERDICT r3 item 5): an engine
+composes them into the production paths: an engine
 VIEW whose every transform dispatches to the distributed bodies, so the
 existing, tested scheme layer — `CkksEngine` ops, `EncodedLinearTransform`
 BSGS, `ChebyshevEvaluator`, the whole `CkksBootstrapper` — runs inside a
@@ -31,7 +31,7 @@ How the seams work:
   if per-device plaintext memory ever binds.
 
 The reference never splits one ciphertext across devices (SURVEY §5); this
-is the TPU-native capability that lifts the limb axis's TP-width cap.
+is the capability that lifts the limb axis's TP-width cap.
 """
 
 import copy
@@ -335,11 +335,10 @@ class CoeffShardedBootstrap:
     """Run a whole CKKS bootstrap with the working set coefficient-sharded
     over the mesh — one exhausted ciphertext refreshed ACROSS devices with
     explicit distributed four-step NTTs and coeff-sharded key switches
-    (DistNtt / CoeffShardedKeySwitcher composed into Bootstrapper.segments,
-    VERDICT r3 item 5).
+    (DistNtt / CoeffShardedKeySwitcher composed into Bootstrapper.segments).
 
     Each segment compiles as its own shard_map program (the segment
-    boundary is the production jit-chunking path, NOTES.md); ciphertext
+    boundary is the production jit-chunking path); ciphertext
     data, rlk, glk and swk keys are all sharded on their coefficient axis,
     so per-device memory for the working set scales 1/D.
     """

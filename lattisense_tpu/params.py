@@ -3,7 +3,7 @@
 The default prime chains are the reference's canonical table
 (reference: frontend/parameter.json, loaded at frontend/custom_task.py:167)
 — the conformance oracles depend on these exact primes. On top of the
-declared chain, the runtime derives TPU-side constants:
+declared chain, the runtime derives device-side constants:
 
 - the auxiliary BEHZ basis for BFV multiplication (NTT-friendly ~59-bit
   primes distinct from q ∪ p, plus m_sk and the power-of-two m̃),
@@ -46,8 +46,7 @@ class FheParams:
         self.p = [int(x) for x in p]
         self.max_level = len(self.q) - 1
         # Machine word for all RNS arithmetic (core/u64.py): 64 (default)
-        # or 32 for sub-2^31 prime chains — the TPU-native word, where
-        # modmuls run on native 32-bit VPU multiplies (create_tpu_param).
+        # or 32 for sub-2^31 prime chains (create_tpu_param).
         self.word_bits = int(word_bits)
         if self.word_bits == 32 and any(x >= (1 << 31) for x in self.q + self.p):
             raise ValueError('word_bits=32 requires all primes < 2^31')
@@ -110,11 +109,10 @@ class BfvParams(FheParams):
 
     @classmethod
     def create_tpu_param(cls, n: int, t: int | None = None) -> 'BfvParams':
-        """TPU-native parameter profile: the default chain's logQP budget
-        re-cut into 31-bit NTT primes with word_bits=32 — all modmuls run
-        on native 32-bit VPU multiplies (measured ~3.3x per limb-row over
-        emulated u64; core/u64.py). Mirrors the reference's FPGA profile,
-        which pins hardware-word-sized prime chains for the same reason
+        """31-bit-word parameter profile: the default chain's logQP budget
+        re-cut into 31-bit NTT primes with word_bits=32, so every modmul
+        runs on 32-bit words (core/u64.py). Mirrors the reference's FPGA
+        profile, which pins hardware-word-sized prime chains
         (frontend/custom_task.py:215 create_fpga_parameter).
 
         The limb counts are FLOORED into the default chain's logQP budget
@@ -177,7 +175,7 @@ class CkksParams(FheParams):
 
     @classmethod
     def create_tpu_param(cls, n: int, slots: int | None = None) -> 'CkksParams':
-        """TPU-native CKKS profile: the default chain's logQP budget re-cut
+        """31-bit-word CKKS profile: the default chain's logQP budget re-cut
         into 31-bit NTT primes with word_bits=32 and scale ≈ 2^30 (rescale
         prime size). Mirrors the reference's CKKS FPGA profile, which pins
         31-bit q chains and a 2^31 scale for the hardware word
@@ -196,11 +194,11 @@ class CkksParams(FheParams):
     @classmethod
     def create_tpu_btp_param(cls, n: int = 65536,
                              slots: int | None = None) -> 'CkksParams':
-        """TPU-native BOOTSTRAP-capable profile: a uniform 31-bit chain for
+        """31-bit-word BOOTSTRAP-capable profile: a uniform 31-bit chain for
         the composite-scaling bootstrap (BootstrapConfig limbs_per_level=2:
         working scales ≈2^62 span prime pairs, ModRaise lifts from the
-        composite base q0·q1 — every operation runs in the chip's native
-        32-bit words, schemes/bootstrap.py).
+        composite base q0·q1 — every operation runs in 32-bit words,
+        schemes/bootstrap.py).
 
         Budget: 48 q + 4 p limbs (logQP ≈ 1612 at n=2^16) sized for the
         reference full-profile circuit quality (k=20, sine_deg=39,

@@ -1,6 +1,6 @@
 """User-facing FHE contexts: key ownership + eager op facade.
 
-TPU-native equivalent of the reference's Handle-based contexts
+This framework's equivalent of the reference's Handle-based contexts
 (fhe_ops_lib/fhe_lib_v2.h:358-706 BfvContext, :831-1163 CkksContext): a
 context owns the parameter set, the secret/public/evaluation keys, and
 exposes encode/encrypt/decrypt plus eager evaluation ops. Unlike the

@@ -1,7 +1,7 @@
 """BFV scheme engine: encode/encrypt/decrypt (host) + eval ops (device-able).
 
 Evaluation ops are namespace-parametric (xp ∈ {numpy, jax.numpy}) pure-array
-functions so the graph runtime can jit them on TPU; encode/encrypt/decrypt
+functions so the graph runtime can jit them for the device; encode/encrypt/decrypt
 use exact host big-int/NumPy math (they sit outside the compiled task graph
 in the reference too — SDK side, cxx_sdk_v2).
 
@@ -337,16 +337,9 @@ class BfvEngine:
             ra = bz.ring_aux
             # batch all four polys through extend/NTT: one (4, L, n) pass
             polys = xp.concatenate([a.data[:2], b.data[:2]], axis=0)
-            if (ntt_mod._pallas32_ok(xp, self.n, polys.dtype)
-                    and getattr(ring, 'dist', None) is None):
-                # K1 megakernel: extend + dual NTT + to-Montgomery fused
-                # per poly with zero mid-phase HBM traffic
-                from ..ops.behz_pallas32 import behz_prep32
-                fq, fa = behz_prep32(polys, bz)
-            else:
-                ext = bz.extend(xp, polys)
-                fq = _u.to_mont(xp, ntt_mod.ntt(xp, polys, ring), ring.q, ring.pinv, ring.r2)
-                fa = _u.to_mont(xp, ntt_mod.ntt(xp, ext, ra), ra.q, ra.pinv, ra.r2)
+            ext = bz.extend(xp, polys)
+            fq = _u.to_mont(xp, ntt_mod.ntt(xp, polys, ring), ring.q, ring.pinv, ring.r2)
+            fa = _u.to_mont(xp, ntt_mod.ntt(xp, ext, ra), ra.q, ra.pinv, ra.r2)
             # tensor product: d0 = a0·b0, d1 = a0·b1 + a1·b0, d2 = a1·b1,
             # batched as a (3, L, n) stack
             def tensor(f, q, pinv):
@@ -360,16 +353,6 @@ class BfvEngine:
             da = tensor(fa, ra.q, ra.pinv)
             # leave Montgomery domain: two to_mont added two R, the product's
             # mont_mul removed one → strip the remaining R.
-            import os as _os
-            if (ntt_mod._pallas32_ok(xp, self.n, dq.dtype)
-                    and getattr(ring, 'dist', None) is None
-                    and _os.environ.get('LATTISENSE_BEHZ_K3', '0') not in ('', '0')):
-                # K3 megakernel — isolated 652 us/op beats isolated XLA
-                # (726) but LOSES to the in-graph fused XLA finish (~464:
-                # from_mont fuses into the tensor product and the INTTs
-                # run as fused-u32 islands), so it stays opt-in
-                from ..ops.behz_pallas32 import behz_finish32
-                return Ciphertext(data=behz_finish32(dq, da, bz), level=level)
             dq = ntt_mod.intt(xp, _u.from_mont(xp, dq, ring.q, ring.pinv), ring)
             da = ntt_mod.intt(xp, _u.from_mont(xp, da, ra.q, ra.pinv), ra)
             return Ciphertext(data=bz.scale_and_back(xp, dq, da), level=level)

@@ -62,8 +62,8 @@ class CkksEngine:
         limb. Shipping that as an (L, 1) column broadcast in-graph (pass
         ``xp=jnp`` inside a trace) keeps scalar constants out of the
         serialized HLO: a deg-39 EvalMod program carries ~45 of them, and
-        at full (L, n) size they alone exceeded the remote compiler's
-        request-body limit (HTTP 413) at the n=8192 toy bootstrap.
+        at full (L, n) size they alone would dominate the program's size
+        at the n=8192 toy bootstrap.
         Also exact: no embedding-FFT rounding noise (which reaches
         O(ε·Δ) ≈ ±100 absolute at Δ=2⁶⁰), so it strictly dominates
         ``encode(np.full(slots, v))`` for scalars. Valid for any slot

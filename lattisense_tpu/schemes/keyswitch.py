@@ -17,13 +17,12 @@ Every stage is *vectorized over the digit axis*: the whole decomposition is
 one (β, α, n)-shaped shoup_mul + one (β, T, α, n) mont_mul with a log-depth
 modular reduction tree, and the gadget inner product is a single
 (β, 2, T, n) mont_mul reduced over β — O(log β·L) traced ops, full-width
-VPU work, instead of the O(β·L) small-op loops a direct translation of the
+elementwise work, instead of the O(β·L) small-op loops a direct translation of the
 reference would produce.
 """
 
 import functools
 import math
-import os
 
 import numpy as np
 
@@ -34,12 +33,6 @@ from ..core.modring import get_rns_ring
 from ..core.rns import BasisConv, _col, _mont, _shoup, _pinv
 
 _U64 = np.uint64
-
-# Fused Pallas gadget inner product (opt-in, bit-identical;
-# ops/ksw_pallas.py). LATTISENSE_PALLAS enables every fused kernel.
-_USE_PALLAS = (os.environ.get('LATTISENSE_PALLAS_KSW',
-                              os.environ.get('LATTISENSE_PALLAS', '0'))
-               not in ('', '0'))
 
 
 class RoundDivP:
@@ -70,8 +63,8 @@ class RoundDivP:
         self.pinv_mont = _col([_mont(pow(P % q, -1, q), q, b) for q in q_moduli], b)
         self.p_inv_f = (1.0 / np.array(p_moduli, dtype=np.float64)).reshape(
             len(p_moduli), 1)
-        # w32 fixed-point overflow estimate (Mosaic has no float64, and the
-        # Pallas key-switch kernel must match bit-for-bit): Σ_j y_j·c_j
+        # w32 fixed-point overflow estimate (no float64 on the 32-bit
+        # word path): Σ_j y_j·c_j
         # with c_j = floor(2^62/p_j) < 2^31; v = Σ >> 62 exactly unless the
         # fractional part is < α·2^-31 (unbiased, ~never)
         self.p_inv_fx = np.array([(1 << 62) // p for p in p_moduli],
@@ -162,34 +155,13 @@ class KeySwitcher:
             x = xp.pad(x, widths)
         xg = x.reshape(*x.shape[:-2], beta, alpha, self.n)
         y = _u.shoup_mul(xp, xg, qhat_inv, qhat_inv_shoup, src_q)
-        if (_USE_PALLAS and xp.__name__ != 'numpy' and self.n >= 256
-                and y.dtype.itemsize == 8):
-            xd = self._modup_fused(y, level)
-        else:
-            # grouped FastBConv: (..., β, 1, α, n) × (β, T, α, 1) → Σ_α
-            terms = _u.mont_mul(xp, y[..., :, None, :, :],
-                                qhat_conv[:, :, :, None],
-                                ring_qp.q[:, :, None],
-                                ring_qp.pinv[:, :, None])
-            xd = _u.modsum_tree(xp, terms, ring_qp.q[:, :, None], axis=-2)
+        # grouped FastBConv: (..., β, 1, α, n) × (β, T, α, 1) → Σ_α
+        terms = _u.mont_mul(xp, y[..., :, None, :, :],
+                            qhat_conv[:, :, :, None],
+                            ring_qp.q[:, :, None],
+                            ring_qp.pinv[:, :, None])
+        xd = _u.modsum_tree(xp, terms, ring_qp.q[:, :, None], axis=-2)
         return ntt_mod.ntt(xp, xd, ring_qp)
-
-    @functools.lru_cache(maxsize=None)
-    def _modup_consts(self, level: int):
-        from ..ops.bconv_pallas import split_consts
-        ring_qp, _, _, _, qhat_conv, _ = self._level_pre(level)
-        return [split_consts(qhat_conv[d], ring_qp.q, ring_qp.pinv)
-                for d in range(self.beta(level))]
-
-    def _modup_fused(self, y, level: int):
-        """Per-digit fused FastBConv: y (..., β, α, n) → (..., β, T, n)."""
-        from ..ops.bconv_pallas import bconv_raw_fused
-        import jax.numpy as jnp
-        consts = self._modup_consts(level)
-        T = len(self.q_moduli[:level + 1]) + self.alpha
-        outs = [bconv_raw_fused(y[..., d, :, :], ch, cl, qd, T, self.alpha)
-                for d, (ch, cl, qd) in enumerate(consts)]
-        return jnp.stack(outs, axis=-3)
 
     def inner_product(self, xp, digits_ntt, ksk, level: int):
         """Σ_d digit_d ⊙ key_d over Q_ℓ∪P (NTT domain) → pair of (..., T, n).
@@ -200,11 +172,6 @@ class KeySwitcher:
         L = level + 1
         beta = self.beta(level)
         kd = xp.concatenate([ksk.key_q[:beta, :, :L], ksk.key_p[:beta]], axis=2)
-        if (_USE_PALLAS and xp.__name__ != 'numpy'
-                and digits_ntt.shape[-1] >= 256
-                and digits_ntt.dtype.itemsize == 8):
-            from ..ops.ksw_pallas import ksw_inner_fused
-            return ksw_inner_fused(digits_ntt, kd, ring_qp.q, ring_qp.pinv)
         terms = _u.mont_mul(xp, digits_ntt[..., :, None, :, :], kd,
                             ring_qp.q, ring_qp.pinv)
         acc = _u.modsum_tree(xp, terms, ring_qp.q, axis=-4)
@@ -230,19 +197,5 @@ class KeySwitcher:
 
     def switch(self, xp, x, ksk, level: int, output_ntt: bool = False):
         """Full key switch of coeff-domain x (..., L, n) → (e0, e1) over Q_ℓ."""
-        if getattr(x, 'dtype', None) is not None:
-            from ..core import ntt as ntt_mod
-            if (ntt_mod._pallas32_ok(xp, self.n, x.dtype)
-                    and os.environ.get('LATTISENSE_KSW32', '0') not in ('', '0')):
-                # fused single-kernel switch — bit-identical; was DEFAULT
-                # ON for w32 since round 3 (ksw_ab_probe 2026-08-19:
-                # 827.3 vs 820.2, parity). Default flipped OFF round 5:
-                # the 2026-08-20 compiler runs the round-2 gate set
-                # (XLA switch + no splat tables) 13% faster end-to-end
-                # and compiles it 10x faster (benchmarks/
-                # gates_ab_probe.py, 931.6 vs 821.8 ops/s interleaved).
-                # LATTISENSE_KSW32=1 restores the fused kernel.
-                from ..ops.ksw_pallas32 import ksw_switch32
-                return ksw_switch32(x, ksk, self, level, output_ntt)
         digits = self.decompose_modup_ntt(xp, x, level)
         return self.switch_from_digits(xp, digits, ksk, level, output_ntt)

@@ -5,7 +5,7 @@ Reference parity:
   (tools/task_progress_bar.h:31, mega_ag_runners/cpu_task_utils.h:414).
 - MemoryMonitor: 100 ms /proc/self/status sampler → crash-safe CSV
   (mega_ag_runners/cpu_mem_monitor.h:34); GpuMemoryMonitor equivalent
-  reports the TPU device memory stats jax exposes.
+  reports the device memory stats jax exposes.
 - tools/plot_mem.py counterpart lives in tools/plot_mem.py.
 """
 
@@ -126,7 +126,7 @@ def dev_mode_enabled() -> bool:
 class trace:
     """Device-level tracing context: wraps ``jax.profiler.trace`` so a task
     run (or any region) produces a TensorBoard/perfetto-loadable trace —
-    the TPU-native replacement for the reference's compile-flag wall-time
+    this framework's replacement for the reference's compile-flag wall-time
     prints (LATTISENSE_PRINT_PROFILE, CMakeLists.txt:268-271).
 
         with observability.trace('/tmp/fhe_trace'):

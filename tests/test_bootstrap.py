@@ -253,7 +253,7 @@ def test_bootstrap_reference_full_profile():
 
 
 def test_bootstrap_w32_composite_scale():
-    """TPU-native (32-bit-word) bootstrap via composite scaling: the
+    """32-bit-word bootstrap via composite scaling: the
     working scale ≈2^62 spans a PAIR of 31-bit primes (limbs_per_level
     auto-selects 2 on w32 engines), every rescale drops two limbs, and
     ModRaise lifts from the composite base q0·q1 by an exact u64 CRT.
@@ -281,9 +281,8 @@ def test_bootstrap_w32_composite_scale():
     assert errs[False] < 5e-4, f'w32 bootstrap err {errs[False]:.2e}'
     assert errs[True] < 2e-5, f'w32 arcsine bootstrap err {errs[True]:.2e}'
     # input-SNR bound: part of the floor above is the INPUT ciphertext's
-    # own noise (≈c·n·σ/Δ_in, measured stage-clean to 1e-13 — NOTES.md
-    # session 5); encoding the bootstrap input at 2^40 removes that
-    # component. At n=256 other floors bind near 2e-6 so the gain here
+    # own noise (≈c·n·σ/Δ_in, measured stage-clean to 1e-13); encoding
+    # the bootstrap input at 2^40 removes that component. At n=256 other floors bind near 2e-6 so the gain here
     # is ~2x (measured 1.96e-6 vs 4.24e-6); at n=4096 it is 843x
     # (4.5e-5 → 5.3e-8) and grows with n.
     ct40 = ctx.encrypt(ctx.engine.encode(msg, 1, float(1 << 40)))
@@ -297,7 +296,7 @@ def test_bootstrap_w32_composite_scale():
                     reason='heavy: full-size n=65536 w32 bootstrap; '
                            'set LATTISENSE_HEAVY_TESTS=1')
 def test_bootstrap_w32_full_size():
-    """Full-size TPU-native bootstrap: n=2^16 on the 31-bit chain
+    """Full-size 32-bit-word bootstrap: n=2^16 on the 31-bit chain
     (create_tpu_btp_param), reference full-profile circuit quality
     (k=20, sine_deg=39, arcsine).
 

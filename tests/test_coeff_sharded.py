@@ -1,4 +1,4 @@
-"""Coefficient-axis sharding conformance (VERDICT r2 item 1): the
+"""Coefficient-axis sharding conformance: the
 distributed four-step NTT and the coeff-sharded key switch / rotation /
 relinearization must be BIT-EXACT vs the single-device kernels, on a
 virtual CPU mesh (SURVEY §2.8 kernel-level coefficient sharding)."""

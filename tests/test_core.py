@@ -137,3 +137,17 @@ class TestNtt:
         assert len(set(ps)) == 3
         for p in ps:
             assert (p - 1) % 32768 == 0 and p < (1 << 60) and p > (1 << 59)
+
+
+def test_xla_conjugated_inverse_bitexact():
+    """The env-gated XLA conjugated inverse (core.ntt._intt_conj) is
+    bit-identical to the ascending formulation."""
+    import jax.numpy as jnp
+    n, L = 4096, 3
+    q = gen_ntt_primes(n, 55, L)
+    ring = get_rns_ring(tuple(q), n)
+    rng = np.random.default_rng(17)
+    x = np.stack([rng.integers(0, qi, n, dtype=np.uint64) for qi in q])[None]
+    ref = ntt_mod.intt(np, x, ring)
+    got = np.asarray(ntt_mod._intt_conj(jnp, jnp.asarray(x), ring))
+    np.testing.assert_array_equal(got, ref)

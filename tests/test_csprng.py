@@ -1,6 +1,6 @@
-"""CSPRNG + multiparty smudging-noise properties (ADVICE r1: secret
-sampling must not use PCG64; published partial-decryption shares must carry
-wide smudging noise — reference sigma_smudging, fhe_lib_v2.h:716)."""
+"""CSPRNG + multiparty smudging-noise properties: secret sampling must not
+use PCG64; published partial-decryption shares must carry wide smudging
+noise (reference sigma_smudging, fhe_lib_v2.h:716)."""
 
 import numpy as np
 

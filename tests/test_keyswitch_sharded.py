@@ -38,7 +38,7 @@ def test_sharded_keyswitch_bitexact(limb_devices):
 
 @pytest.mark.parametrize('limb_devices', [2, 4])
 def test_sharded_keyswitch_w32_bitexact(limb_devices):
-    """31-bit-word (TPU-native) chains through the limb-sharded switch —
+    """31-bit-word chains through the limb-sharded switch —
     bit-exact vs the single-device w32 path. limb=4 exercises the widened
     psum_scatter (u32 row sums would wrap for D > 2)."""
     from lattisense_tpu.params import BfvParams

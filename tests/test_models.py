@@ -130,7 +130,7 @@ def test_encrypted_matvec_sparse_diagonals(ckks_ctx):
 
 
 def test_encrypted_matvec_w32(tmp_path):
-    """Model zoo on the TPU-native 31-bit-word profile (w32): the compiled
+    """Model zoo on the 31-bit-word profile (w32): the compiled
     task adopts the caller context's RNS word, u32 end-to-end."""
     from lattisense_tpu.core.modring import gen_ntt_primes
     from lattisense_tpu.models import EncryptedMatVec

@@ -18,7 +18,7 @@ N, T, PARTIES = 64, 65537, 3
 
 @pytest.fixture(scope='module', params=[64, 32], ids=['u64', 'w32'])
 def setup(request):
-    """Both RNS words: the u64 reference chains and the 31-bit TPU-native
+    """Both RNS words: the u64 reference chains and the 31-bit
     (word_bits=32) profile — every protocol must hold on both."""
     if request.param == 64:
         q = gen_ntt_primes(N, 50, 3)

@@ -193,8 +193,7 @@ def test_bootstrap_segments_limb_sharded(tmp_path):
     os.environ.get('LATTISENSE_SLOW_TESTS', '') in ('', '0'),
     reason='~5 min of segment compiles (set LATTISENSE_SLOW_TESTS=1)')
 def test_bootstrap_segments_limb_coeff_sharded(tmp_path):
-    """2-D limb×coeff sharded CKKS bootstrap segments (VERDICT r2 item 1
-    'limb×coeff bootstrap segment test'): every segment jitted with the
+    """2-D limb×coeff sharded CKKS bootstrap segments: every segment jitted with the
     ciphertext sharded over BOTH the RNS-limb axis and the coefficient
     (ring-dimension) axis of a (limb=2, coeff=4) mesh. GSPMD inserts the
     collectives (all_to_all/all_gather where the NTT butterflies and the
@@ -401,7 +400,7 @@ def test_limb_tp_hoisted_rotations_ckks():
 def test_task_graph_coeff_placement(ctx, tmp_path, mesh_shape):
     """FheTaskTpu(mesh=...) with a ``coeff`` mesh axis: each op's ring
     dimension sharded across devices via GSPMD sharding constraints
-    (VERDICT r3 item 5 'coeff axis reachable from FheTaskTpu') — a
+    — a
     mult_relin + rotate task graph, results identical to the eager
     interpreter."""
     from lattisense_tpu.frontend import custom_task as fct

@@ -1,4 +1,4 @@
-"""Binary-real plug-in boundary (VERDICT r2 item 6): build the C ABI
+"""Binary-real plug-in boundary: build the C ABI
 .so + a standalone C++ client, drive a compiled bfv mult_relin+rotate
 task through it over raw-RNS C structs only, and verify the returned
 ciphertext decrypts to the oracle. The client also asserts the verbatim

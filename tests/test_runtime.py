@@ -1,5 +1,5 @@
 """End-to-end: frontend Erg → mega_ag.json → FheTaskTpu (eager & jit) →
-decrypt, matching the plain-math oracles — the TPU analog of the reference's
+decrypt, matching the plain-math oracles — this framework's analog of the reference's
 two-phase suite (SURVEY.md §4, test_cpu_bfv.{py,cpp})."""
 
 import numpy as np
@@ -525,7 +525,7 @@ def test_partitioned_host_steps_overlap(bfv_setup, tmp_path):
 def test_w32_task_adopts_context_word(tmp_path, mode):
     """A compiled task executed with a 32-bit-word context: the runtime
     rebuilds its engine on the context's RNS word (the serialized blob is
-    word-agnostic), so 31-bit-chain tasks run the TPU-native u32 path."""
+    word-agnostic), so 31-bit-chain tasks run the u32 path."""
     n, t = 64, 65537
     primes = gen_ntt_primes(n, 31, 6)
     q, p = primes[:4], primes[4:]

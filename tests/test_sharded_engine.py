@@ -2,9 +2,8 @@
 scheme layer running inside shard_map must be BIT-EXACT vs the
 single-device engine — op by op (default tier) and across a whole toy
 bootstrap (slow tier). This is the production composition of
-DistNtt/CoeffShardedKeySwitcher into the engine/bootstrap paths
-(VERDICT r3 item 5); the reference never splits one ciphertext across
-devices (SURVEY §5, fhe_ops_lib/fhe_lib_v2.h:1173)."""
+DistNtt/CoeffShardedKeySwitcher into the engine/bootstrap paths; the
+reference never splits one ciphertext across devices (SURVEY §5, fhe_ops_lib/fhe_lib_v2.h:1173)."""
 
 import os
 
@@ -153,8 +152,7 @@ def test_sharded_engine_hoisted_rotations(wb):
 def test_coeff_sharded_bootstrap_toy():
     """A WHOLE toy bootstrap coeff-sharded end-to-end via
     CoeffShardedBootstrap (explicit DistNtt + coeff-sharded switches in
-    every segment) — bit-exact vs the single-device segment walk
-    (VERDICT r3 item 5 'Done' criterion)."""
+    every segment) — bit-exact vs the single-device segment walk."""
     from lattisense_tpu.core.modring import gen_ntt_primes
     from lattisense_tpu.runtime import CkksBtpContext
     from lattisense_tpu.schemes.bootstrap import BootstrapConfig
@@ -254,9 +252,9 @@ def test_coeff_sharded_bootstrap_reference_toy_profile():
     reference CI exercises — unittests/test_cpu_ckks.cpp:847) refreshed
     end-to-end with the working set coeff-sharded over the virtual mesh,
     bit-exact vs the single-device segment walk at every boundary
-    (VERDICT r4 item 7: the n=256 smoke proof promoted to the reference
-    profile). Shares the profile definition (and walk cache) with
-    benchmarks/bootstrap_chip.py via benchmarks/btp_profiles.py."""
+    (the n=256 smoke proof promoted to the reference profile). Shares the
+    profile definition (and walk cache) with benchmarks/bootstrap_chip.py
+    via benchmarks/btp_profiles.py."""
     import sys
     sys.path.insert(0, os.path.join(os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))), 'benchmarks'))

@@ -1,9 +1,9 @@
-"""32-bit word (u32 / R=2^32) engine path: the TPU-native prime profile.
+"""32-bit word (u32 / R=2^32) engine path: the 31-bit prime profile.
 
 The reference's FPGA backend pins hardware-word-sized (31-bit) prime chains
-(reference frontend/custom_task.py:215 create_fpga_parameter); the TPU
-analog is word_bits=32 params (params.BfvParams.create_tpu_param) where all
-RNS modmuls run on native 32-bit VPU multiplies (core/u64.py).
+(reference frontend/custom_task.py:215 create_fpga_parameter); the analog
+here is word_bits=32 params (params.BfvParams.create_tpu_param) where all
+RNS modmuls run on 32-bit words (core/u64.py).
 
 Strategy: the same chain run at word_bits=32 and word_bits=64 must agree —
 bitwise for word-local ops (sampling is dtype-stable by construction), and
@@ -178,170 +178,6 @@ def test_pt_formats_word32(ctx_pair):
         assert np.array_equal(got, (msg * w) % 257), type(pt)
     got = c32.decrypt_decode(c32.add(e, c32.encode_ringt(w)))
     assert np.array_equal(got, (msg + w) % 257)
-
-
-# ---------------------------------------------------------------------------
-# fused u32 Pallas kernels (ops/ntt_pallas32.py) — interpret mode on CPU
-# ---------------------------------------------------------------------------
-
-@pytest.mark.parametrize('n,batch', [(256, (1,)), (256, (3,)), (1024, (2, 2))])
-def test_pallas32_ntt_bit_exact(n, batch):
-    from lattisense_tpu.ops.ntt_pallas32 import intt_fused32, ntt_fused32
-    chain = tuple(gen_ntt_primes(n, 31, 3))
-    ring = get_rns_ring(chain, n, 32)
-    rng = np.random.default_rng(5)
-    x = np.stack([[rng.integers(0, qi, n, dtype=np.uint64).astype(np.uint32)
-                   for qi in chain]
-                  for _ in range(int(np.prod(batch)))])
-    x = x.reshape(*batch, len(chain), n)
-    want_f = ntt_mod.ntt(np, x, ring)
-    got_f = np.asarray(ntt_fused32(jnp.asarray(x), ring))
-    assert got_f.dtype == np.uint32
-    assert np.array_equal(got_f, want_f)
-    got_i = np.asarray(intt_fused32(jnp.asarray(want_f), ring))
-    assert np.array_equal(got_i, x)
-
-
-@pytest.mark.parametrize('n,batch', [(256, (3,)), (1024, (2, 2))])
-def test_pallas32_ntt_radix4_bit_exact(n, batch):
-    """Radix-4 merged-stage kernels (VERDICT r3 item 3): bit-identical to
-    core/ntt in both directions, incl. the vmap-collapsing entry."""
-    from lattisense_tpu.ops.ntt_pallas32 import (intt_fused32_r4,
-                                                 ntt_fused32_r4)
-    chain = tuple(gen_ntt_primes(n, 31, 3))
-    ring = get_rns_ring(chain, n, 32)
-    rng = np.random.default_rng(15)
-    x = np.stack([[rng.integers(0, qi, n, dtype=np.uint64).astype(np.uint32)
-                   for qi in chain]
-                  for _ in range(int(np.prod(batch)))])
-    x = x.reshape(*batch, len(chain), n)
-    want_f = ntt_mod.ntt(np, x, ring)
-    got_f = np.asarray(ntt_fused32_r4(jnp.asarray(x), ring))
-    assert np.array_equal(got_f, want_f)
-    got_i = np.asarray(intt_fused32_r4(jnp.asarray(want_f), ring))
-    assert np.array_equal(got_i, x)
-
-
-def test_pallas32_vmap_collapses():
-    from lattisense_tpu.ops.ntt_pallas32 import ntt_fused32
-    import jax
-    n = 256
-    chain = tuple(gen_ntt_primes(n, 31, 2))
-    ring = get_rns_ring(chain, n, 32)
-    rng = np.random.default_rng(6)
-    x = np.stack([[rng.integers(0, qi, n, dtype=np.uint64).astype(np.uint32)
-                   for qi in chain]
-                  for _ in range(4)])
-    want = ntt_mod.ntt(np, x, ring)
-    got = np.asarray(jax.vmap(lambda v: ntt_fused32(v, ring))(jnp.asarray(x)))
-    assert np.array_equal(got, want)
-
-
-def test_pallas32_dispatch_gate(monkeypatch):
-    n = 256
-    chain = tuple(gen_ntt_primes(n, 31, 2))
-    ring = get_rns_ring(chain, n, 32)
-    rng = np.random.default_rng(7)
-    x = np.stack([rng.integers(0, qi, n, dtype=np.uint64).astype(np.uint32)
-                  for qi in chain])
-    want = ntt_mod.ntt(np, x, ring)
-    monkeypatch.setattr(ntt_mod, '_PALLAS32_ENV', '1')
-    got = np.asarray(ntt_mod.ntt(jnp, jnp.asarray(x), ring))
-    back = np.asarray(ntt_mod.intt(jnp, jnp.asarray(got), ring))
-    assert np.array_equal(got, want)
-    assert np.array_equal(back, x)
-
-
-def test_behz_prep32_bit_exact():
-    from lattisense_tpu.core import u64 as _uu
-    from lattisense_tpu.ops.behz_pallas32 import behz_prep32
-    n = 256
-    chain = tuple(gen_ntt_primes(n, 31, 6))
-    q, p = list(chain[:3]), [chain[3]]
-    params = BfvParams.create_custom(n, 257, q, p, word_bits=32)
-    ctx = BfvContext.create_random_context(params, seed=13)
-    eng = ctx.engine
-    bz = eng.behz(2)
-    ring, ra = bz.ring_q, bz.ring_aux
-    rng = np.random.default_rng(4)
-    polys = np.stack([[rng.integers(0, qi, n, dtype=np.uint64).astype(np.uint32)
-                       for qi in ring.moduli] for _ in range(4)])
-    ext = bz.extend(np, polys)
-    want_fq = _uu.to_mont(np, ntt_mod.ntt(np, polys, ring), ring.q, ring.pinv, ring.r2)
-    want_fa = _uu.to_mont(np, ntt_mod.ntt(np, ext, ra), ra.q, ra.pinv, ra.r2)
-    fq, fa = behz_prep32(jnp.asarray(polys), bz)
-    assert np.array_equal(np.asarray(fq), want_fq)
-    assert np.array_equal(np.asarray(fa), want_fa)
-    # vmap-collapsed (the batched-step path)
-    import jax
-    pb = jnp.asarray(np.stack([polys, polys]))
-    fq2, fa2 = jax.vmap(lambda v: behz_prep32(v, bz))(pb)
-    assert np.array_equal(np.asarray(fq2[1]), want_fq)
-
-
-def test_behz_finish32_bit_exact():
-    from lattisense_tpu.core import u64 as _uu
-    from lattisense_tpu.ops.behz_pallas32 import behz_finish32
-    n = 256
-    chain = tuple(gen_ntt_primes(n, 31, 6))
-    q, p = list(chain[:3]), [chain[3]]
-    params = BfvParams.create_custom(n, 257, q, p, word_bits=32)
-    ctx = BfvContext.create_random_context(params, seed=14)
-    eng = ctx.engine
-    bz = eng.behz(2)
-    ring, ra = bz.ring_q, bz.ring_aux
-    rng = np.random.default_rng(6)
-    dq = np.stack([[rng.integers(0, qi, n, dtype=np.uint64).astype(np.uint32)
-                    for qi in ring.moduli] for _ in range(3)])
-    da = np.stack([[rng.integers(0, qi, n, dtype=np.uint64).astype(np.uint32)
-                    for qi in ra.moduli] for _ in range(3)])
-    dq_i = ntt_mod.intt(np, _uu.from_mont(np, dq, ring.q, ring.pinv), ring)
-    da_i = ntt_mod.intt(np, _uu.from_mont(np, da, ra.q, ra.pinv), ra)
-    want = bz.scale_and_back(np, dq_i, da_i)
-    got = np.asarray(behz_finish32(jnp.asarray(dq), jnp.asarray(da), bz))
-    assert np.array_equal(got, want)
-
-
-def test_mult_relin_gated_kernels_bit_exact(monkeypatch, ctx_pair):
-    """eng.mult with the K1+K3 gates forced on (interpret) must match the
-    ungated XLA path bitwise."""
-    c32, _ = ctx_pair
-    monkeypatch.setattr(ntt_mod, '_PALLAS32_ENV', '0')
-    msg_a = np.arange(N, dtype=np.int64) % 257
-    msg_b = (np.arange(N, dtype=np.int64) * 9 + 1) % 257
-    ea = c32.encrypt(c32.encode(msg_a, 3))
-    eb = c32.encrypt(c32.encode(msg_b, 3))
-    eng = c32.engine
-    import jax
-    want = np.asarray(jax.jit(lambda x, y: eng.mult(jnp,
-        __import__('lattisense_tpu.schemes.types', fromlist=['Ciphertext']).Ciphertext(data=x, level=3),
-        __import__('lattisense_tpu.schemes.types', fromlist=['Ciphertext']).Ciphertext(data=y, level=3)).data)(ea.data, eb.data))
-    monkeypatch.setattr(ntt_mod, '_PALLAS32_ENV', '1')
-    got = np.asarray(jax.jit(lambda x, y: eng.mult(jnp,
-        __import__('lattisense_tpu.schemes.types', fromlist=['Ciphertext']).Ciphertext(data=x, level=3),
-        __import__('lattisense_tpu.schemes.types', fromlist=['Ciphertext']).Ciphertext(data=y, level=3)).data)(ea.data, eb.data))
-    assert np.array_equal(got, want)
-
-
-@pytest.mark.parametrize('output_ntt', [False, True])
-def test_ksw_switch32_bit_exact(output_ntt):
-    from lattisense_tpu.ops.ksw_pallas32 import ksw_switch32
-    n = 256
-    chain = tuple(gen_ntt_primes(n, 31, 8))
-    q, p = list(chain[:5]), list(chain[5:7])   # alpha=2, ragged last digit
-    params = BfvParams.create_custom(n, 257, q, p, word_bits=32)
-    ctx = BfvContext.create_random_context(params, seed=15)
-    sw = ctx.engine.switcher
-    rng = np.random.default_rng(8)
-    for level in (4, 3, 2):
-        L = level + 1
-        x = np.stack([rng.integers(0, qi, n, dtype=np.uint64).astype(np.uint32)
-                      for qi in q[:L]])
-        want = sw.switch(np, x, ctx.rlk, level, output_ntt=output_ntt)
-        got = ksw_switch32(jnp.asarray(x), ctx.rlk, sw, level,
-                           output_ntt=output_ntt)
-        assert np.array_equal(np.asarray(got[0]), want[0]), level
-        assert np.array_equal(np.asarray(got[1]), want[1]), level
 
 
 # ---------------------------------------------------------------------------
